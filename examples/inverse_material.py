@@ -2,7 +2,7 @@
 
 Renders a target image of the sphere demo scene, perturbs the material
 albedo + roughness + light intensity, then recovers them by gradient descent
-on the pixel loss. Run on TPU or with --cpu.
+on the pixel loss. Runs on the GPU, or on the CPU with --cpu.
 """
 
 import argparse

@@ -1,15 +1,16 @@
-"""physically-based-ray-tracer (TPU edition).
+"""physically-based-ray-tracer.
 
-A brand-new TPU-native, differentiable, physically-based path-tracing
-framework written in JAX/XLA/Pallas. Feature parity target is the reference
+A differentiable, physically-based path-tracing framework written in
+JAX/XLA, with a CUDA BVH traversal kernel for NVIDIA GPUs (sm_90a).
+Feature parity target is the reference
 CPU engine ``Iancic/Physically-Based-Ray-Tracer`` (C++ / tinybvh / OpenMP /
 AVX2); the architecture is not a port: everything is a pure-functional
-wavefront program over SoA arrays, sharded across TPU chips with
+wavefront program over SoA arrays, sharded across devices with
 ``jax.sharding`` and compiled by XLA.
 
 Layout:
     utils/     math, RNG, images, timing
-    ops/       BRDF stack, sampling, intersection, BVH traversal (XLA+Pallas)
+    ops/       BRDF stack, sampling, intersection, BVH traversal (XLA + CUDA)
     bvh/       host-side SAH BVH builders (numpy + native C++), TLAS
     scene/     camera, lights, materials, scene assembly, JSON serialization
     models/    glTF/GLB asset loading, textures, resource cache

@@ -18,13 +18,13 @@ import numpy as np
 from physically_based_ray_tracer_tpu.bvh.dense import DenseBVH
 from physically_based_ray_tracer_tpu.bvh.types import BVHArrays
 
-FORMAT_VERSION = 3   # v3: + compact winner-decode prim table (pids_c);
-#      v2 added groups_bf/glo; older caches silently rebuild
+FORMAT_VERSION = 4   # v4: f32 dense tables only; older caches silently
+#      rebuild
 
 
 def _norm(path: str) -> str:
     """np.savez appends '.npz' to extensionless paths; normalise so save and
-    load always agree on the on-disk name (ADVICE r2: an extensionless
+    load always agree on the on-disk name (an extensionless
     cache_path otherwise always missed on load and silently rebuilt)."""
     return path if path.endswith(".npz") else path + ".npz"
 
@@ -69,16 +69,14 @@ def load_bvh(path: str, triangles=None, params: str = "") -> BVHArrays | None:
 
 
 def save_dense(path: str, dbvh: DenseBVH, triangles=None, params: str = ""):
-    """Persist a dense-leaf (Pallas) BVH table."""
+    """Persist a dense-leaf BVH table."""
     np.savez_compressed(
         _norm(path),
         version=np.int64(FORMAT_VERSION), layout="dense",
         content=_tri_hash(triangles, params) if triangles is not None else "",
         nodes16=np.asarray(dbvh.nodes16), groups=np.asarray(dbvh.groups),
         inst16=np.asarray(dbvh.inst16), prim_base=np.asarray(dbvh.prim_base),
-        world_lo=np.asarray(dbvh.world_lo), world_hi=np.asarray(dbvh.world_hi),
-        groups_bf=np.asarray(dbvh.groups_bf).view(np.uint16),
-        glo=np.asarray(dbvh.glo), pids_c=np.asarray(dbvh.pids_c))
+        world_lo=np.asarray(dbvh.world_lo), world_hi=np.asarray(dbvh.world_hi))
 
 
 def load_dense(path: str, triangles=None, params: str = "") -> DenseBVH | None:
@@ -94,11 +92,7 @@ def load_dense(path: str, triangles=None, params: str = "") -> DenseBVH | None:
             return None
         return DenseBVH(*(jnp.asarray(z[k]) for k in
                           ("nodes16", "groups", "inst16", "prim_base",
-                           "world_lo", "world_hi")),
-                        groups_bf=jnp.asarray(
-                            z["groups_bf"].view(jnp.bfloat16)),
-                        glo=jnp.asarray(z["glo"]),
-                        pids_c=jnp.asarray(z["pids_c"]))
+                           "world_lo", "world_hi")))
     except (OSError, KeyError, ValueError):
         return None
 

@@ -6,7 +6,7 @@
 // fragment-based builder. Output is deliberately generic — an Aila/Laine
 // 2-wide node table plus variable-length leaf segments of primitive
 // references (duplicates allowed) — so Python packs it either into the
-// classic BVHArrays layout (bvh/builder.py) or the dense-leaf Pallas layout
+// classic BVHArrays layout (bvh/builder.py) or the dense-leaf layout
 // (bvh/dense.py) without the C side knowing about either.
 //
 // C ABI for ctypes (no pybind11 in this image):

@@ -185,16 +185,11 @@ def refit_dense(dbvh: DenseBVH, new_tris: np.ndarray) -> DenseBVH:
 
     root_lo = np.minimum(nodes[0, 0:3], nodes[0, 6:9])
     root_hi = np.maximum(nodes[0, 3:6], nodes[0, 9:12])
-    from physically_based_ray_tracer_tpu.bvh.dense import _pack_groups_bf
-    gbf, glo, pids_c = _pack_groups_bf(groups)
     return DenseBVH(
         nodes16=jnp.asarray(nodes.reshape(-1)),
         groups=jnp.asarray(groups),
         inst16=dbvh.inst16,
         prim_base=dbvh.prim_base,
-        groups_bf=jnp.asarray(gbf),
-        glo=jnp.asarray(glo),
-        pids_c=jnp.asarray(pids_c),
         world_lo=jnp.asarray(np.where(np.isfinite(root_lo), root_lo, 0.0)
                              .astype(np.float32)),
         world_hi=jnp.asarray(np.where(np.isfinite(root_hi), root_hi, 0.0)

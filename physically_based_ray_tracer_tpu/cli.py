@@ -18,7 +18,7 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU-native path tracer")
+    p = argparse.ArgumentParser(description="physically-based path tracer")
     p.add_argument("--demo", choices=["sphere", "cornell"], default=None,
                    help="procedural demo scene")
     p.add_argument("--assets", default=None, help="reference-format assets root")
@@ -103,6 +103,9 @@ def main(argv=None):
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from physically_based_ray_tracer_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
 
     from physically_based_ray_tracer_tpu.config import RenderConfig, RenderMode
     from physically_based_ray_tracer_tpu.render.renderer import Renderer

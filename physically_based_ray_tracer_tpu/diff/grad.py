@@ -1,7 +1,7 @@
 """Differentiable rendering entry points.
 
 The reference engine has no gradients at all; differentiability is a
-first-class goal of the TPU build (BASELINE.json): pixel values are
+first-class goal of this renderer (BASELINE.json): pixel values are
 differentiable w.r.t. material albedo/roughness, light parameters, and
 camera/object transforms. Strategy (SURVEY.md §7): detached sampling — hit
 *topology* (which prim, which lobe, which light) carries no gradient, while
@@ -127,8 +127,7 @@ def apply_params(scene: SceneData, cam: Camera, params: dict):
         # + frozen topology); hits come from the baked BVH, shading from the
         # translated tri_v0 via refine_hit.
     if "instance_trs" in params:
-        # FULL differentiable TRS per instance (VERDICT r3 item #5 /
-        # BASELINE "object transforms"): the world bake (_bake_world) is
+        # FULL differentiable TRS per instance (BASELINE "object transforms"): the world bake (_bake_world) is
         # pure math, so re-derive the baked arrays under the delta
         # transform A_i = M(pos, rot, scale)_i @ inv(M_base_i). At the
         # initial parameters A = identity and gradients equal the
@@ -138,14 +137,19 @@ def apply_params(scene: SceneData, cam: Camera, params: dict):
         M = trs_matrix_jnp(g["position"], g["rotation"], g["scale"])  # (I,3,4)
         base_inv = jax.lax.stop_gradient(
             jnp.asarray(g["base_inv"], jnp.float32))      # (I, 4, 4)
-        L = jnp.einsum("iab,ibc->iac", M[:, :, 0:3], base_inv[:, 0:3, 0:3])
-        tcol = (jnp.einsum("iab,ib->ia", M[:, :, 0:3], base_inv[:, 0:3, 3])
+        # f32 contractions at HIGHEST precision: on the GPU a default
+        # einsum may run in TF32 (about three decimal digits)
+        hi = jax.lax.Precision.HIGHEST
+        L = jnp.einsum("iab,ibc->iac", M[:, :, 0:3], base_inv[:, 0:3, 0:3],
+                       precision=hi)
+        tcol = (jnp.einsum("iab,ib->ia", M[:, :, 0:3], base_inv[:, 0:3, 3],
+                           precision=hi)
                 + M[:, :, 3])                             # (I, 3)
         invT = jnp.linalg.inv(L).transpose(0, 2, 1)       # normal matrix
         Lp = jnp.take(L, s.prim_inst, axis=0)             # (P, 3, 3)
         tp = jnp.take(tcol, s.prim_inst, axis=0)          # (P, 3)
         nTp = jnp.take(invT, s.prim_inst, axis=0)
-        mm = lambda A, x: jnp.einsum("pab,pb->pa", A, x)
+        mm = lambda A, x: jnp.einsum("pab,pb->pa", A, x, precision=hi)
         # rsqrt-of-clamped-square normalize: |x|=0 rows (degenerate pole
         # triangles) keep a FINITE zero gradient; linalg.norm's vjp at 0
         # is NaN and would poison the whole transform gradient
@@ -180,7 +184,7 @@ def make_loss_fn(scene: SceneData, cam: Camera, cfg: RenderConfig, target,
     """L2 image loss over a pixel batch as a function of a params dict.
 
     With ``axis_name`` set (inside shard_map), loss and grads are averaged
-    over the mesh axis — the gradient all-reduce over ICI of SURVEY.md §5.
+    over the mesh axis — the gradient all-reduce of SURVEY.md §5.
     """
 
     def loss_fn(params, key, sample):

@@ -4,7 +4,7 @@ BASELINE config #5: "recover material albedo/roughness + light params from
 target images via pixel gradients on multi-host pod". The train step is a
 pure jitted function; the sharded variant runs under ``shard_map`` with
 pixels sharded over the ``tiles`` axis and gradients ``pmean``-reduced over
-ICI — the all-reduce-overlapped-with-backward design of SURVEY.md §5.
+the mesh — the all-reduce-overlapped-with-backward design of SURVEY.md §5.
 """
 
 from __future__ import annotations

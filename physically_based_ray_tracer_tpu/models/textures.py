@@ -25,26 +25,32 @@ def pack_rgba_u32(rgb: np.ndarray) -> np.ndarray:
             | (rgb[..., 1].astype(np.uint32) << 8) | rgb[..., 2].astype(np.uint32))
 
 
+def _decode(fp) -> np.ndarray:
+    """Any image Pillow reads (JPEG, PNG, ...) -> packed raster."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "decoding texture images needs Pillow, which is not installed; "
+            "scenes without textures render without it") from e
+    img = Image.open(fp)
+    if img.mode not in ("RGB", "RGBA"):
+        img = img.convert("RGBA")
+    return pack_rgba_u32(np.asarray(img))
+
+
 def load_texture(path: str) -> np.ndarray | None:
     """Load an image file to a packed uint32 raster; None if missing."""
     if not path or not os.path.exists(path):
         return None
-    from PIL import Image
-    img = Image.open(path)
-    if img.mode not in ("RGB", "RGBA"):
-        img = img.convert("RGBA")
-    return pack_rgba_u32(np.asarray(img))
+    return _decode(path)
 
 
 def decode_image_bytes(data: bytes) -> np.ndarray | None:
     """Decode an in-memory (glTF buffer-view) image to a packed raster."""
     import io
 
-    from PIL import Image
-    img = Image.open(io.BytesIO(data))
-    if img.mode not in ("RGB", "RGBA"):
-        img = img.convert("RGBA")
-    return pack_rgba_u32(np.asarray(img))
+    return _decode(io.BytesIO(data))
 
 
 def combine_rma(roughness: np.ndarray | None, metalness: np.ndarray | None,

@@ -14,7 +14,7 @@ reference's deliberate quirks:
   + Heitz VNDF sampling (Core/BRDF.h:42-160 macro matrix).
 
 Everything is expressed on SoA batches: a million shading points evaluate as
-a handful of fused VPU element-wise ops instead of the reference's per-ray
+a handful of fused element-wise ops instead of the reference's per-ray
 scalar recursion.
 """
 
@@ -427,8 +427,8 @@ def eval_indirect_combined_brdf(u, shading_normal, geometry_normal, v,
 
     ``brdf_type`` is an integer array (1=diffuse, 2=specular). Returns
     (ray_direction, sample_weight, valid_mask). Both lobes are evaluated and
-    selected with ``where`` — on TPU the two fused element-wise pipelines are
-    cheaper than divergent control flow.
+    selected with ``where``: two fused element-wise pipelines instead of
+    divergent control flow.
     """
     del geometry_normal  # reference ignores it too (commented-out guards)
     q_rot = jnp.asarray(  # getRotationToZAxis on shading normal

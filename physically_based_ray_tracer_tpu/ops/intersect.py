@@ -1,6 +1,6 @@
 """Ray-triangle and ray-AABB intersection primitives (pure jnp, batched).
 
-TPU-native counterparts of tinybvh's shared intersectors: Möller-Trumbore
+Counterparts of tinybvh's shared intersectors: Möller-Trumbore
 (Core/tiny_bvh.h:7965-7993) and the slab test (Core/tiny_bvh.h:8070+). All
 functions are elementwise over matching leading batch dims so XLA fuses them
 into the traversal loop.
@@ -13,7 +13,6 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from physically_based_ray_tracer_tpu.config import BVH_FAR
-from physically_based_ray_tracer_tpu.utils.math import cross, dot
 
 
 class Hit(NamedTuple):
@@ -38,20 +37,34 @@ class Hit(NamedTuple):
         return self.prim >= 0
 
 
+def _cross3(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+
+def _dot3(a, b):
+    """a . b summed left to right; b is a 3-tuple of components."""
+    return a[..., 0] * b[0] + a[..., 1] * b[1] + a[..., 2] * b[2]
+
+
 def intersect_tri(o, d, v0, e1, e2, t_max, eps: float = 1e-9):
     """Möller-Trumbore. Returns (t, u, v, hit_mask).
 
     No backface culling, matching BVHBase::IntersectTri semantics. ``t_max``
-    is the current-best distance; hits at >= t_max are rejected.
+    is the current-best distance; hits at >= t_max are rejected. Every
+    product and sum is written out in the order the dense traversal
+    (ops/traverse_dense.py and its CUDA kernel) uses, so both engines round
+    alike and agree on hits at shared edges.
     """
-    pvec = cross(d, e2)
-    det = dot(e1, pvec)
+    pvec = _cross3(d, e2)
+    det = _dot3(e1, pvec)
     inv_det = jnp.where(jnp.abs(det) > eps, 1.0 / det, 0.0)
     tvec = o - v0
-    u = dot(tvec, pvec) * inv_det
-    qvec = cross(tvec, e1)
-    v = dot(d, qvec) * inv_det
-    t = dot(e2, qvec) * inv_det
+    u = _dot3(tvec, pvec) * inv_det
+    qvec = _cross3(tvec, e1)
+    v = _dot3(d, qvec) * inv_det
+    t = _dot3(e2, qvec) * inv_det
     hit = ((jnp.abs(det) > eps) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > 0.0) & (t < t_max))
     return t, u, v, hit

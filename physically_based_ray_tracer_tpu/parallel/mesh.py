@@ -8,7 +8,7 @@ The reference's only parallelism is one OpenMP loop on one CPU
   gradient/framebuffer reductions.
 
 Multi-host slices extend the same mesh over all processes
-(``jax.distributed``); XLA routes collectives over ICI within a slice.
+(``jax.distributed``); XLA hands the collectives to NCCL on GPUs.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Tensor-parallel analogue for beyond-HBM scenes: instance-partitioned
-tracing (SURVEY.md §2.5, VERDICT r4 item #44's TP half).
+"""Tensor-parallel analogue for scenes beyond one device's memory:
+instance-partitioned tracing (SURVEY.md §2.5).
 
 The memory that outgrows a chip is the acceleration structure + leaf
 geometry (the 1M-triangle benchmark's tables are ~10x its shading
@@ -9,7 +9,7 @@ parameter tables, replicate the small activations, insert one collective
 
   * INSTANCES are round-robined across the mesh axis; each device builds
     a dense TLAS+BLAS over ITS subset only (1/D of nodes + leaf groups —
-    the per-chip HBM footprint is the point).
+    the per-device memory footprint is the point).
   * RAYS are replicated (they are the "activations": a wavefront chunk
     is a few MB against table gigabytes).
   * Each device traces all rays against its sub-scene, then ONE
@@ -29,9 +29,7 @@ its subset cannot hit; the union of per-device traversal work is the
 single-device work plus D-1 cheap root rejections per ray — the classic
 object-decomposition trade, bought for a D-fold table-memory scaling.
 
-v1 scope: the f32 dense engine (the bf16 banded tables' compact decode
-layout (pids_c period C) differs per shard and is dropped rather than
-re-laid-out; the traversal semantics are identical).
+Each shard traces with the default dense engine (ops/traverse_dense.py).
 """
 
 from __future__ import annotations
@@ -95,7 +93,7 @@ def partition_instances(mesh_tris, inst_mesh, transforms, n_shards: int,
             tiny = np.diag([1e-12, 1e-12, 1e-12, 1.0]).astype(np.float32)
             db, _meta, dep = build_dense_tlas(
                 [mesh_tris[m_small]], np.array([0], np.int64),
-                tiny[None], leaf_target=leaf_target, shape=True)
+                tiny[None], leaf_target=leaf_target)
             gmap = np.zeros(1, np.int32)
             poff = np.zeros(1, np.int32)
         else:
@@ -107,12 +105,10 @@ def partition_instances(mesh_tris, inst_mesh, transforms, n_shards: int,
             remap[used] = np.arange(len(used))
             db, _meta, dep = build_dense_tlas(
                 [mesh_tris[m] for m in used], remap[inst_mesh[sel]],
-                transforms[sel], leaf_target=leaf_target, shape=True)
+                transforms[sel], leaf_target=leaf_target)
             l_base = np.asarray(db.prim_base, np.int64)
             gmap = sel.astype(np.int32)
             poff = (g_base[sel] - l_base[: len(sel)]).astype(np.int32)
-        # v1: drop the bf16 banded tables (per-shard pids_c layouts differ)
-        db = db._replace(groups_bf=None, glo=None, pids_c=None)
         shard_dbs.append(db)
         shard_gmap.append(gmap)
         shard_poff.append(poff)
@@ -131,8 +127,7 @@ def partition_instances(mesh_tris, inst_mesh, transforms, n_shards: int,
     dbvh = DenseBVH(
         nodes16=stack("nodes16"), groups=stack("groups"),
         inst16=stack("inst16"), prim_base=stack("prim_base"),
-        world_lo=stack("world_lo"), world_hi=stack("world_hi"),
-        groups_bf=None, glo=None, pids_c=None)
+        world_lo=stack("world_lo"), world_hi=stack("world_hi"))
     gmap = jnp.asarray(np.stack([_pad_to(g, imax) for g in shard_gmap]))
     poff = jnp.asarray(np.stack([_pad_to(p, imax) for p in shard_poff]))
     return PartitionedScene(dbvh=dbvh, inst_gmap=gmap, prim_off=poff,
@@ -169,13 +164,12 @@ def _combine_closest(hit: Hit, axis: str, n_shards: int) -> Hit:
 
 
 def partitioned_closest(ps: PartitionedScene, mesh: Mesh, o, d, t_max=None,
-                        axis: str = "obj", interpret: bool = False,
-                        sort: bool = True) -> Hit:
+                        axis: str = "obj", sort: bool = True) -> Hit:
     """Closest hit of replicated rays against the shard-partitioned scene;
     the returned record uses GLOBAL prim/inst ids (replicated output)."""
     from jax import shard_map
 
-    from physically_based_ray_tracer_tpu.ops.pallas_trace import (
+    from physically_based_ray_tracer_tpu.ops.traverse_dense import (
         intersect_closest_dense, sorted_closest_dense)
     if t_max is None:
         t_max = jnp.full((o.shape[0],), BVH_FAR, o.dtype)
@@ -184,7 +178,7 @@ def partitioned_closest(ps: PartitionedScene, mesh: Mesh, o, d, t_max=None,
 
     def local(db, gmap, poff, o, d, tm):
         db = jax.tree.map(lambda x: x[0], db)
-        hit = fn(db, o, d, tm, interpret=interpret)
+        hit = fn(db, o, d, tm)
         hit = _local_to_global(gmap[0], poff[0], hit)
         return _combine_closest(hit, axis, n)
 
@@ -197,18 +191,17 @@ def partitioned_closest(ps: PartitionedScene, mesh: Mesh, o, d, t_max=None,
 
 
 def partitioned_any(ps: PartitionedScene, mesh: Mesh, o, d, t_max,
-                    axis: str = "obj", interpret: bool = False,
-                    sort: bool = True) -> jnp.ndarray:
+                    axis: str = "obj", sort: bool = True) -> jnp.ndarray:
     """Occlusion of replicated rays: any shard's occluder blocks."""
     from jax import shard_map
 
-    from physically_based_ray_tracer_tpu.ops.pallas_trace import (
+    from physically_based_ray_tracer_tpu.ops.traverse_dense import (
         intersect_any_dense, sorted_any_dense)
     fn = sorted_any_dense if sort else intersect_any_dense
 
     def local(db, o, d, tm):
         db = jax.tree.map(lambda x: x[0], db)
-        occ = fn(db, o, d, tm, interpret=interpret)
+        occ = fn(db, o, d, tm)
         return jax.lax.pmax(occ.astype(jnp.int32), axis)
 
     spec_s = jax.tree.map(lambda _: P(axis), ps.dbvh)

@@ -1,6 +1,6 @@
 """Hit-point shading queries: normals + material fetch.
 
-TPU-native counterpart of Scene::GetGeometryNormal / GetShadingNormal /
+Counterpart of Scene::GetGeometryNormal / GetShadingNormal /
 GetMaterialBRDF (Core/Scene.cpp:47-218). All lookups are batched gathers over
 SoA attribute arrays; texture taps are nearest-neighbour uint32 texel fetches
 from a flat texel pool, decoded with the reference's channel conventions
@@ -138,10 +138,8 @@ def material_at_hit(scene, prim, u, v) -> MaterialProperties:
 
 
 # ---------------------------------------------------------------------------
-# Packed-table shading path (round 4): XLA row-gathers cost ~9 ns/element on
-# TPU, and the per-bounce shading block was doing ~25-30 of them — measured
-# as ~40% of the whole bench frame (docs/FRAME_GLUE_r04.json). The packs
-# below concatenate the per-prim attributes ONCE per trace (cheap linear
+# Packed-table shading path: the per-bounce shading block would otherwise do
+# ~25-30 per-lane row gathers. The packs below concatenate the per-prim attributes ONCE per trace (cheap linear
 # copies, CSE'd across bounces) so each bounce pays 2 wide gathers + the
 # genuine texture taps instead. Values are bit-identical to the unpacked
 # functions above (same rows, same math), which stay for AOV/debug callers.
@@ -151,12 +149,9 @@ def packed_tables(scene):
     """(geom_pack (P,13), shade_pack (P,15), mat_pack (M,11)).
 
     The per-prim model id rides in the geom pack as an f32 column (exact
-    for any realistic model count): gathering it as a separate (B,) i32
-    take cost ~0.9 ms per bounce on TPU (scalar gathers are ~9 ns/element;
-    wide row gathers amortize), profiles/frame_r05_f32. The texture
-    records ride the mat pack as 12 f32 columns for the same reason (the
-    separate (B,4,3) int take cost ~1.3 ms/bounce, profiles/frame_r05_bf16)
-    whenever every offset is f32-exact (< 2^24 — always true for texel
+    for any realistic model count), so it costs no separate (B,) i32
+    take. The texture records ride the mat pack as 12 f32 columns for the
+    same reason whenever every offset is f32-exact (< 2^24 — always true for texel
     pools under 64 MTexels; larger pools keep the int gather)."""
     P = scene.tri_v0.shape[0]
     geom = jnp.concatenate([scene.tri_v0, scene.tri_e1, scene.tri_e2,
@@ -177,13 +172,12 @@ def packed_tables(scene):
         M = scene.tex_record.shape[0]
         mat_cols.append(scene.tex_record.reshape(M, 12).astype(jnp.float32))
     mat = jnp.concatenate(mat_cols, axis=1)
-    # ONE-pack mode (r5, profiles/frame_r05_final): a per-lane row gather
-    # costs ~9 ns/ROW regardless of width, so the three takes below
-    # (geom by prim, shade by prim, mat by model) cost 3x what one wider
-    # take does. Denormalize the small per-model mat table to per-prim
+    # ONE-pack mode: a per-lane row gather costs about the same per ROW
+    # whatever its width, so the three takes below (geom by prim, shade
+    # by prim, mat by model) cost more than one wider take. Denormalize the small per-model mat table to per-prim
     # and concatenate everything into one (P, 51) pack — ONE row gather
     # per bounce. Gated by prim count: the denormalized pack costs
-    # P*51*4 B of HBM (7.8 MB for the 38k-tri bench; skipped for
+    # P*51*4 B of device memory (7.8 MB for the 38k-tri bench; skipped for
     # 1M-tri-class scenes where 200 MB is not worth the gather saving).
     if P <= MERGED_PACK_MAX_PRIMS:
         mat_pp = jnp.take(mat, scene.prim_model, axis=0, mode="clip")

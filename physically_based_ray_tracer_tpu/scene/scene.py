@@ -1,13 +1,13 @@
 """Scene assembly: models + instances -> device-resident SceneData.
 
-TPU-native re-design of the reference's Scene/Model/GameObject stack
+Re-design of the reference's Scene/Model/GameObject stack
 (Core/Scene.cpp, Core/Model.cpp, Core/GameObject.cpp). Two build modes:
 
   * build_scene (static): bakes instance transforms into world space on the
-    host and builds ONE flattened BVH — single-level traversal is cheapest
-    on a lockstep vector machine when nothing moves.
+    host and builds ONE flattened BVH — single-level traversal is the
+    cheapest when nothing moves.
   * build_scene_instanced (dynamic): shared BLAS per model + TLAS over
-    instances in the dense/Pallas structure (the reference's
+    instances in the dense-leaf structure (the reference's
     BLASInstance/TLAS design, Core/tiny_bvh.h:1732-1770) — each mesh's BVH
     is stored ONCE, and rebuild_scene() refreshes only the TLAS head +
     instance table + the small world-space shading arrays when transforms
@@ -24,7 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from physically_based_ray_tracer_tpu.bvh.builder import build_bvh, bvh_depth
-from physically_based_ray_tracer_tpu.bvh.dense import (DenseBVH, TLASMeta,
+from physically_based_ray_tracer_tpu.bvh.dense import (DEFAULT_LEAF_TARGET,
+                                                       DenseBVH, TLASMeta,
                                                        build_dense,
                                                        build_dense_tlas,
                                                        refresh_tlas)
@@ -92,7 +93,7 @@ class SceneData(NamedTuple):
     """Everything the integrator needs, as device arrays (replicated per chip)."""
 
     bvh: BVHArrays
-    dense: DenseBVH            # fat-leaf BVH for the Pallas megakernel
+    dense: DenseBVH            # fat-leaf BVH for the default (dense) engine
     # original-order world-space geometry (for shading + differentiable refine)
     tri_v0: jnp.ndarray        # (P, 3)
     tri_e1: jnp.ndarray        # (P, 3)
@@ -203,8 +204,7 @@ def _assemble(models, bvh, dense, baked, lights, sky):
 
 def build_scene(models: list[MeshModel], instances: list[Instance],
                 lights: LightSet | None = None, sky: np.ndarray | None = None,
-                leaf_size: int = 16, dense_leaf_target: int = 16,
-                dense_shape: bool = True,
+                leaf_size: int = 16, dense_leaf_target: int = DEFAULT_LEAF_TARGET,
                 ) -> tuple[SceneData, int]:
     """Bake instances to world space, build the flattened BVH, upload.
 
@@ -214,8 +214,7 @@ def build_scene(models: list[MeshModel], instances: list[Instance],
     baked = _bake_world(models, instances)
     bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
     depth = bvh_depth(bvh)
-    dense, _ = build_dense(baked["tri"], leaf_target=dense_leaf_target,
-                           shape=dense_shape)
+    dense, _ = build_dense(baked["tri"], leaf_target=dense_leaf_target)
     data = _assemble(models, bvh.to_device(), dense, baked, lights, sky)
     return data, depth
 
@@ -232,8 +231,7 @@ class InstancedScene:
     legacy_bvh: bool
     prim_start: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     prim_count: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
-    dense_leaf_target: int = 16
-    dense_shape: bool = True
+    dense_leaf_target: int = DEFAULT_LEAF_TARGET
 
 
 def _instance_offsets(models, instances):
@@ -258,44 +256,30 @@ def _bake_one(mdl: MeshModel, inst: Instance):
             wf.astype(np.float32), wn.astype(np.float32))
 
 
-# Scene-adaptive layout policy (r5, VERDICT #2): a two-level TLAS pays a
-# per-tile BLAS re-entry cost in the lockstep traversal kernels; flattening
-# to ONE world-baked tree removes it — but replication multiplies the leaf
-# group and node tables, and the measured frame REGRESSES 1.2x when the
-# flattened tables spill their fast memory tiers (bench scene flattened:
-# 2.4k groups > VMEM budget -> per-visit HBM DMA; 4.8k nodes > SMEM limit;
-# docs/PERF_LOG.md r5 "scene-adaptive layout"). So "auto" flattens ONLY
-# when the flattened tree still fits: nodes in SMEM and groups in VMEM
-# (checked post-build, falling back to the TLAS otherwise).
+# Scene-adaptive layout policy: a two-level TLAS pays an instance re-entry
+# (ray rebase + BLAS root descent) for every overlapping instance a ray
+# meets; flattening to ONE world-baked tree removes it but replicates the
+# leaf groups and nodes of every instance. flatten="auto" world-bakes a
+# scene only under these count caps.
 FLATTEN_MAX_INSTANCES = 128
 FLATTEN_MAX_TRIS = 1 << 18
-
-
-def _dense_fits_fast_memory(dense) -> bool:
-    from physically_based_ray_tracer_tpu.bvh.dense import GROUP_ROWS, NODE_F
-    from physically_based_ray_tracer_tpu.ops.pallas_trace import (
-        SMEM_NODE_LIMIT, VMEM_GROUP_LIMIT)
-    n_nodes = dense.nodes16.shape[0] // NODE_F
-    n_groups = dense.groups.shape[0] // GROUP_ROWS
-    return n_nodes <= SMEM_NODE_LIMIT and n_groups <= VMEM_GROUP_LIMIT
 
 
 def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           lights: LightSet | None = None,
                           sky: np.ndarray | None = None,
-                          leaf_size: int = 16, dense_leaf_target: int = 16,
-                          dense_shape: bool = True,
+                          leaf_size: int = 16, dense_leaf_target: int = DEFAULT_LEAF_TARGET,
                           legacy_bvh: bool = True,
                           flatten: bool | str = False,
                           ) -> tuple[SceneData, InstancedScene, int]:
     """Two-level build: shared BLAS per model + TLAS over instances.
 
-    Each model's triangles live ONCE in the dense/Pallas structure (the
+    Each model's triangles live ONCE in the dense-leaf structure (the
     BLASInstance design, Core/tiny_bvh.h:1243-1256); only the small
     world-space shading arrays are per-instance. ``legacy_bvh=False`` skips
-    the world-baked single-level BVH used by the non-Pallas engines (pass it
-    only when cfg.traversal == "pallas"); a 1-triangle placeholder keeps the
-    pytree shape.
+    the world-baked classic BVH used by the wave/packet/lane engines (pass
+    it only when cfg.traversal == "dense"); a 1-triangle placeholder keeps
+    the pytree shape.
 
     ``flatten``: False keeps the two-level structure (the choice for scenes
     that move every frame — rebuild_scene stays O(instances)); "auto" lets
@@ -312,12 +296,9 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
         and baked["tri"].shape[0] <= FLATTEN_MAX_TRIS)
     if do_flatten:
         dense, ddepth = build_dense(baked["tri"],
-                                    leaf_target=dense_leaf_target,
-                                    shape=dense_shape)
+                                    leaf_target=dense_leaf_target)
         meta = None
-        if flatten == "auto" and not _dense_fits_fast_memory(dense):
-            do_flatten = False   # replicated tables spill VMEM/SMEM
-    if not do_flatten:
+    else:
         mesh_tris = [m.corners.reshape(-1, 3, 3).astype(np.float32)
                      for m in models]
         inst_mesh = np.array([i.model for i in instances], np.int64)
@@ -325,8 +306,7 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                                for i in instances]).astype(np.float32)
         dense, meta, ddepth = build_dense_tlas(mesh_tris, inst_mesh,
                                                transforms,
-                                               leaf_target=dense_leaf_target,
-                                               shape=dense_shape)
+                                               leaf_target=dense_leaf_target)
     if legacy_bvh:
         bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
         depth = max(bvh_depth(bvh), ddepth)
@@ -339,8 +319,7 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                             tlas_meta=meta, leaf_size=leaf_size,
                             legacy_bvh=legacy_bvh,
                             prim_start=starts, prim_count=counts,
-                            dense_leaf_target=dense_leaf_target,
-                            dense_shape=dense_shape)
+                            dense_leaf_target=dense_leaf_target)
     return data, handle, depth
 
 
@@ -393,12 +372,11 @@ def rebuild_scene(data: SceneData, handle: InstancedScene,
         tri = np.stack([np.asarray(tri_v0),
                         np.asarray(tri_v0) + np.asarray(tri_e1),
                         np.asarray(tri_v0) + np.asarray(tri_e2)], axis=1)
-        dense, _ = build_dense(tri, leaf_target=handle.dense_leaf_target,
-                               shape=handle.dense_shape)
+        dense, _ = build_dense(tri, leaf_target=handle.dense_leaf_target)
     else:
         dense = data.dense
     if handle.legacy_bvh:
-        # non-Pallas engines traverse the world-baked BVH: full rebuild
+        # wave/packet/lane engines traverse the world-baked BVH: full rebuild
         tri = np.stack([np.asarray(tri_v0),
                         np.asarray(tri_v0) + np.asarray(tri_e1),
                         np.asarray(tri_v0) + np.asarray(tri_e2)], axis=1)

@@ -65,7 +65,7 @@ class EditSession:
 
     def _light_path(self, kind: str, index: int) -> str:
         # filter to .json exactly like the loader does, so the index↔file
-        # mapping cannot be shifted by stray editor backups (ADVICE r3)
+        # mapping cannot be shifted by stray editor backups
         d = os.path.join(self.scene_dir, _LIGHT_DIRS[kind])
         files = (sorted(f for f in os.listdir(d) if f.endswith(".json"))
                  if os.path.isdir(d) else [])
@@ -146,7 +146,7 @@ class EditSession:
             if f.endswith(".json") and os.path.isfile(p):
                 out[p] = os.path.getmtime(p)
         # light subdirectories too, so external light-JSON edits are folded
-        # in by watch_once just like object/camera edits (ADVICE r3)
+        # in by watch_once just like object/camera edits
         for sub in _LIGHT_DIRS.values():
             d = os.path.join(self.scene_dir, sub)
             if os.path.isdir(d):

@@ -2,7 +2,7 @@
 
 The reference's observability is a frame-time EMA on screen
 (Core/Renderer.cpp:467-474, SURVEY.md §5: "no hierarchical profiler, no
-trace export"). TPU-native replacement: ``jax.profiler`` traces viewable in
+trace export"). Replacement: ``jax.profiler`` traces viewable in
 TensorBoard/Perfetto + named-scope annotation of pipeline stages.
 """
 
@@ -16,7 +16,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/pbrt_tpu_trace"):
+def trace(log_dir: str):
     """Capture a device trace for everything inside the block.
 
     View with: tensorboard --logdir <log_dir> (Profile tab) or upload the

@@ -47,9 +47,9 @@ def ray_count(config, n_pixels: int, spp: int = 1,
     Per path vertex (per AA sub-path, per bounce):
       * 1 closest-hit extension LANE (the first one is the primary ray).
         Lanes whose path already died at a miss still count here — this is
-        an UPPER bound on live extension rays (VERDICT r3 weak #3). For the
+        an UPPER bound on live extension rays. For the
         honest expected-live-rays metric use ``live_ray_count`` with
-        fractions measured by experiments/live_rays.py (bench.py does);
+        per-bounce live fractions (docs/LIVE_RAYS_*.json; bench.py does);
       * stochastic NEE (Core/Renderer.cpp:205-214): with prob P_POINT the
         point branch traces ``n_point_lights`` shadow rays; otherwise the
         dir/spot/area branch traces 1. Expectation: 0.3*NP + 0.7. Dead
@@ -74,7 +74,7 @@ def live_ray_count(config, n_pixels: int, ext_fractions, shadow_fractions,
                    spp: int = 1) -> int:
     """Expected rays ACTUALLY traced per frame, from measured per-bounce
     live-lane fractions (the ``collect_live`` tap in ``trace_paths``,
-    calibrated once per scene by experiments/live_rays.py).
+    calibrated once per scene, docs/LIVE_RAYS_*.json).
 
     ``ext_fractions[b]``: fraction of lanes whose bounce-``b`` extension ray
     is live (``ext_fractions[0]`` = 1.0 — every primary ray traces).

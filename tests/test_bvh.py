@@ -1,6 +1,6 @@
 """BVH build + traversal correctness vs a brute-force oracle.
 
-The reference has no tests (SURVEY.md §4); this suite anchors the TPU BVH on
+The reference has no tests (SURVEY.md §4); this suite anchors the BVH on
 exhaustive comparison against O(rays x tris) intersection.
 """
 

@@ -4,9 +4,10 @@ Config 2: Cornell box + AreaLight, 4-bounce NEE (BASELINE.json configs).
 Config 4: pinball geometry + skydome IBL + glossy BRDFs
           (Core/Camera.cpp:43-74 skydome sampling; PinballMachine meshes).
 
-Both render through the DEFAULT (pallas) engine at a fixed seed and compare
+Both render through the DEFAULT (dense) engine at a fixed seed and compare
 against committed golden PNGs, like tests/test_golden_scene1.py (config 3's
-anchor). Regenerate after an intentional change with:
+anchor); the Cornell golden is also checked with the lane engine.
+Regenerate after an intentional change with:
     PYTHONPATH=. python tests/test_golden_configs.py regen
 """
 
@@ -41,14 +42,14 @@ def _sky_fixture() -> np.ndarray:
     return read_hdr(SKY_FIXTURE)
 
 
-def _render_cornell():
+def _render_cornell(traversal: str = "dense"):
     from physically_based_ray_tracer_tpu.config import RenderConfig
     from physically_based_ray_tracer_tpu.render.renderer import Renderer
     from tests.scenes import cornell_scene
 
     scene, cam = cornell_scene(area_light=True)
     cfg = RenderConfig(width=64, height=64, bounces=4, antialias=False,
-                       skybox=False, max_stack_depth=32)
+                       skybox=False, max_stack_depth=32, traversal=traversal)
     return Renderer(scene, cam, cfg).tick()
 
 
@@ -88,24 +89,36 @@ def _render_pinball():
     return Renderer(scene, cam, cfg).tick()
 
 
-def _check(img, golden_path, tol=1e-5, max_abs=6.0 / 255.0):
+def _check(img, golden_path, tol=1e-5, max_abs=6.0 / 255.0, outliers=0):
     # ~2.5x PNG-quantization MSE + a max-abs gate: tight enough that a
-    # wrong constant in one BRDF branch fails (VERDICT r3 weak #6)
+    # wrong constant in one BRDF branch fails. ``outliers`` pixels may miss
+    # the max-abs gate; they are left out of the MSE.
     from physically_based_ray_tracer_tpu.utils.image import read_image
 
     assert os.path.exists(golden_path), \
         f"golden missing - run: PYTHONPATH=. python {__file__} regen"
     ref = read_image(golden_path)[..., :3]
     assert ref.shape == img.shape
-    mse = float(np.mean((img - ref) ** 2))
+    err = np.abs(img - ref)
+    over = err.max(axis=-1) >= max_abs
+    assert over.sum() <= outliers, \
+        f"{int(over.sum())} pixels deviate by >= {max_abs:.4f} " \
+        f"(max {float(err.max()):.4f}, {outliers} allowed)"
+    mse = float(np.mean(err[~over] ** 2))
     assert mse < tol, f"deviates from golden: MSE={mse:.2e}"
-    mx = float(np.max(np.abs(img - ref)))
-    assert mx < max_abs, f"max-abs deviation {mx:.4f}"
 
 
 def test_cornell_area_light_golden():
     img = _render_cornell()
     assert img.mean() > 0.01, "Cornell render suspiciously dark"
+    _check(img, CORNELL_GOLDEN)
+
+
+def test_cornell_golden_lane_engine():
+    """The golden holds for the independent per-lane engine over the
+    classic BVH too, at the same bounds."""
+    img = _render_cornell(traversal="lane")
+    assert img.mean() > 0.01
     _check(img, CORNELL_GOLDEN)
 
 
@@ -177,9 +190,9 @@ DS4_GOLDEN = os.path.join(GOLDEN_DIR, "scene1_1080_ds4.png")
                     or not os.path.isdir("/root/reference/assets"),
                     reason="1080p certification artifact absent")
 def test_scene1_1080p_downsample_consistent():
-    """Ties the on-chip 1080p certification artifact (experiments/
-    scene1_1080p.py -> tests/golden/scene1_1080_ds4.png, a 4x box-filtered
-    1920x1080 render) to the CI-rendered 480x270 image. The two sample the
+    """Ties the 1080p certification artifact (tests/golden/
+    scene1_1080_ds4.png, a 4x box-filtered 1920x1080 render) to the
+    CI-rendered 480x270 image. The two sample the
     image plane differently (16 averaged rays/pixel vs 1 centre ray), so
     the gate is aliasing-scale, not quantization-scale — it still fails on
     any lighting/geometry/semantic drift between the certified chip render

@@ -14,13 +14,9 @@ from physically_based_ray_tracer_tpu.scene.procedural import make_quad, make_sph
 from physically_based_ray_tracer_tpu.scene.scene import Instance, MeshModel, build_scene
 
 # tiny + 1 bounce + no AA: the backward pass must stay cheap to compile on
-# CPU. leaf_precision="f32": finite-difference gradient checks perturb the
-# geometry, and the bf16 engine's arbitrary edge-tie selection can flip a
-# pixel's hit prim across the FD step — a discrete jump that poisons the FD
-# estimate (the analytic gradients themselves are engine-agnostic).
+# CPU.
 CFG = RenderConfig(width=12, height=12, bounces=1, antialias=False,
-                   skybox=False, max_stack_depth=24, gamma_corrected=False,
-                   leaf_precision="f32")
+                   skybox=False, max_stack_depth=24, gamma_corrected=False)
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,9 @@
 Validates the multi-host story (SURVEY.md §2.5: the reference has none) in
 simulation: two CPU processes join one JAX distributed system, form a
 global 2-device mesh, and agree on a psum — the collective path gradient
-reduction uses in diff/inverse.py. (Real pods swap the CPU backend for TPU;
-the mesh/collective code is identical.)
+reduction uses in diff/inverse.py. These processes stay on the CPU backend
+(one JAX process per card is the rule on a GPU machine); the mesh and
+collective code is the same for any backend.
 """
 
 import os
@@ -111,8 +112,9 @@ import jax.numpy as jnp
 import numpy as np
 sys.path.insert(0, repo)
 sys.path.insert(0, os.path.join(repo, "tests"))
-jax.config.update("jax_compilation_cache_dir", "/tmp/pbrt_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from physically_based_ray_tracer_tpu.utils.compile_cache import (
+    enable_compile_cache)
+enable_compile_cache()
 from scenes import sphere_scene, TINY
 from physically_based_ray_tracer_tpu.parallel.shard import sharded_frame
 from physically_based_ray_tracer_tpu.render.film import FilmState
@@ -142,7 +144,7 @@ print("OK", pid, local.shape)
 
 
 def test_two_process_frame_render(tmp_path):
-    """The missing half of the multi-host story (VERDICT r2): two OS
+    """The other half of the multi-host story: two OS
     processes render one sharded frame; the stitched image must equal the
     single-process render (global-pixel-id RNG => sharding-invariant)."""
     import numpy as np
@@ -182,7 +184,7 @@ def test_two_process_frame_render(tmp_path):
 
     from physically_based_ray_tracer_tpu.render.film import FilmState
     from physically_based_ray_tracer_tpu.render.renderer import frame_fn
-    from scenes import TINY, sphere_scene
+    from tests.scenes import TINY, sphere_scene
 
     scene, cam = sphere_scene()
     film = FilmState.zeros(TINY.n_pixels)
@@ -213,8 +215,9 @@ import numpy as np
 import optax
 sys.path.insert(0, repo)
 sys.path.insert(0, os.path.join(repo, "tests"))
-jax.config.update("jax_compilation_cache_dir", "/tmp/pbrt_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from physically_based_ray_tracer_tpu.utils.compile_cache import (
+    enable_compile_cache)
+enable_compile_cache()
 from scenes import sphere_scene, TINY
 from physically_based_ray_tracer_tpu.diff.inverse import make_sharded_train_step
 from jax.sharding import NamedSharding, PartitionSpec as P

@@ -10,7 +10,7 @@ from jax.sharding import Mesh
 
 from physically_based_ray_tracer_tpu.bvh.dense import build_dense_tlas
 from physically_based_ray_tracer_tpu.config import BVH_FAR
-from physically_based_ray_tracer_tpu.ops.pallas_trace import (
+from physically_based_ray_tracer_tpu.ops.traverse_dense import (
     intersect_any_dense, intersect_closest_dense)
 from physically_based_ray_tracer_tpu.parallel.object_partition import (
     partition_instances, partitioned_any, partitioned_closest)
@@ -52,15 +52,15 @@ def setup():
     mesh = Mesh(np.array(jax.devices()[:8]), ("obj",))
     ps = partition_instances(mesh_tris, inst_mesh, tf, n_shards=8)
     gdb, _meta, _dep = build_dense_tlas(mesh_tris, inst_mesh, tf,
-                                        leaf_target=16, shape=True)
+                                        leaf_target=16)
     return mesh, ps, gdb
 
 
 def test_partitioned_closest_equals_union(setup):
     mesh, ps, gdb = setup
     o, d = _rays()
-    ref = intersect_closest_dense(gdb, o, d, interpret=True)
-    got = partitioned_closest(ps, mesh, o, d, interpret=True, sort=False)
+    ref = intersect_closest_dense(gdb, o, d)
+    got = partitioned_closest(ps, mesh, o, d, sort=False)
     assert (np.asarray(ref.prim >= 0).mean() > 0.5), "scene mostly hit"
     np.testing.assert_array_equal(np.asarray(got.prim), np.asarray(ref.prim))
     np.testing.assert_array_equal(np.asarray(got.inst), np.asarray(ref.inst))
@@ -74,12 +74,12 @@ def test_partitioned_any_equals_union(setup):
     mesh, ps, gdb = setup
     o, d = _rays()
     tmax = jnp.full((o.shape[0],), 6.0, jnp.float32)
-    ref = intersect_any_dense(gdb, o, d, tmax, interpret=True)
-    got = partitioned_any(ps, mesh, o, d, tmax, interpret=True, sort=False)
+    ref = intersect_any_dense(gdb, o, d, tmax)
+    got = partitioned_any(ps, mesh, o, d, tmax, sort=False)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     # dead rays never occlude
     got0 = partitioned_any(ps, mesh, o, d, jnp.zeros_like(tmax),
-                           interpret=True, sort=False)
+                           sort=False)
     assert not np.asarray(got0).any()
 
 
@@ -98,10 +98,10 @@ def test_partitioned_empty_shards():
     mesh = Mesh(np.array(jax.devices()[:8]), ("obj",))
     ps = partition_instances(mesh_tris, inst_mesh, tf, n_shards=8)
     gdb, _m, _d = build_dense_tlas(mesh_tris, inst_mesh, tf,
-                                   leaf_target=16, shape=True)
+                                   leaf_target=16)
     o, d = _rays(512)
-    ref = intersect_closest_dense(gdb, o, d, interpret=True)
-    got = partitioned_closest(ps, mesh, o, d, interpret=True, sort=False)
+    ref = intersect_closest_dense(gdb, o, d)
+    got = partitioned_closest(ps, mesh, o, d, sort=False)
     np.testing.assert_array_equal(np.asarray(got.prim), np.asarray(ref.prim))
     np.testing.assert_array_equal(
         np.asarray(got.t < BVH_FAR * 0.5), np.asarray(ref.t < BVH_FAR * 0.5))

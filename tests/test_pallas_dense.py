@@ -1,7 +1,8 @@
-"""Dense-leaf BVH + Pallas traversal megakernel vs brute-force oracle.
+"""Dense-leaf BVH + its traversal vs the brute-force oracle.
 
-Runs the kernel in interpret mode on CPU (Mosaic lowering is validated
-on-chip by experiments/validate_pallas_tpu.py and the bench)."""
+Runs the plain traversal (the CPU lowering of the default engine); the CUDA
+kernel is compared with it on the card by tests/test_gpu.py and
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +11,7 @@ import pytest
 
 from physically_based_ray_tracer_tpu.bvh.dense import LEAF_W, build_dense
 from physically_based_ray_tracer_tpu.ops.intersect import brute_force_intersect
-from physically_based_ray_tracer_tpu.ops.pallas_trace import (
+from physically_based_ray_tracer_tpu.ops.traverse_dense import (
     intersect_any_dense, intersect_closest_dense, sorted_closest_dense)
 from physically_based_ray_tracer_tpu.scene.procedural import make_quad, make_sphere
 
@@ -61,7 +62,7 @@ def test_closest_vs_brute_force(n_rays):
     e2 = jnp.asarray(tri[:, 2] - tri[:, 0])
 
     ref = brute_force_intersect(o, d, v0, e1, e2)
-    got = intersect_closest_dense(dbvh, o, d, interpret=True)
+    got = intersect_closest_dense(dbvh, o, d)
     np.testing.assert_array_equal(np.asarray(got.prim >= 0),
                                   np.asarray(ref.prim >= 0))
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
@@ -83,7 +84,7 @@ def test_closest_respects_tmax():
                                 jnp.asarray(tri[:, 2] - tri[:, 0]))
     t_ref = np.asarray(ref.t)
     cut = np.where(t_ref < 1e29, t_ref * 0.5, 1.0).astype(np.float32)
-    got = intersect_closest_dense(dbvh, o, d, jnp.asarray(cut), interpret=True)
+    got = intersect_closest_dense(dbvh, o, d, jnp.asarray(cut))
     # nothing may be found at-or-beyond the clip
     found = np.asarray(got.prim) >= 0
     assert np.all(np.asarray(got.t)[found] < cut[found])
@@ -100,15 +101,14 @@ def test_anyhit_vs_brute_force():
     # three tmax regimes: beyond hit (occluded), before hit (clear), zero
     for scale, expect_from_t in ((1.5, True), (0.5, False)):
         tmax = np.where(t_ref < 1e29, t_ref * scale, 100.0).astype(np.float32)
-        occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax),
-                                             interpret=True))
+        occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax)))
         has_hit = t_ref < 1e29
         if expect_from_t:
             np.testing.assert_array_equal(occ, has_hit)
         else:
             assert not occ[has_hit].any()
     occ0 = np.asarray(intersect_any_dense(
-        dbvh, o, d, jnp.zeros((o.shape[0],), jnp.float32), interpret=True))
+        dbvh, o, d, jnp.zeros((o.shape[0],), jnp.float32)))
     assert not occ0.any()
 
 
@@ -116,8 +116,8 @@ def test_sorted_wrapper_matches_unsorted():
     tri = _scene_tris()
     dbvh, _ = build_dense(tri)
     o, d = _rays(800, seed=11)
-    a = intersect_closest_dense(dbvh, o, d, interpret=True)
-    b = sorted_closest_dense(dbvh, o, d, interpret=True)
+    a = intersect_closest_dense(dbvh, o, d)
+    b = sorted_closest_dense(dbvh, o, d)
     np.testing.assert_allclose(np.asarray(a.t), np.asarray(b.t),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(a.prim >= 0),
@@ -125,13 +125,8 @@ def test_sorted_wrapper_matches_unsorted():
 
 
 def test_integrator_pallas_matches_wave():
-    """Full 2-bounce frame: pallas traversal == wave traversal radiance.
-
-    The f32 engine must match EXACTLY (same predicate, different
-    schedule). The bf16 default engine is allowed its documented residual:
-    closest-pass edge ties where the apron winner resolves to a different
-    (true) edge-adjacent path — rare (<0.5% of pixels) and dim; the
-    occlusion path is candidate-confirmed so it adds no divergence."""
+    """Full 2-bounce frame: the default dense engine == wave traversal
+    radiance (same predicate, different schedule)."""
     from tests.scenes import sphere_scene
     from physically_based_ray_tracer_tpu.config import RenderConfig
     from physically_based_ray_tracer_tpu.render.integrator import render_sample
@@ -143,15 +138,7 @@ def test_integrator_pallas_matches_wave():
                         skybox=False, accumulate=False)
     c_wave, _ = render_sample(scene, cam, base.replace(traversal="wave"),
                               key, 0, ids)
-    c_f32, _ = render_sample(
-        scene, cam, base.replace(traversal="pallas", leaf_precision="f32"),
-        key, 0, ids)
-    np.testing.assert_allclose(np.asarray(c_f32), np.asarray(c_wave),
+    c_dense, _ = render_sample(scene, cam, base.replace(traversal="dense"),
+                               key, 0, ids)
+    np.testing.assert_allclose(np.asarray(c_dense), np.asarray(c_wave),
                                rtol=2e-4, atol=2e-5)
-    c_bf, _ = render_sample(
-        scene, cam, base.replace(traversal="pallas", leaf_precision="bf16"),
-        key, 0, ids)
-    bad = ~np.isclose(np.asarray(c_bf), np.asarray(c_wave),
-                      rtol=2e-4, atol=2e-5)
-    frac = bad.any(axis=1).mean()
-    assert frac <= 0.005, f"bf16 edge-tie pixels {frac:.2%} exceed budget"

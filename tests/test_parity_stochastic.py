@@ -1,6 +1,6 @@
 """Per-pixel parity of the STOCHASTIC integrator paths vs the float64 oracle.
 
-r4 VERDICT weak #5: the light-type lottery, point/spot falloff quirks,
+The light-type lottery, point/spot falloff quirks,
 dielectric RR and lobe RIS were pinned only by self-generated goldens. Here
 the scalar float64 oracle (tests/oracle.py trace_path_stochastic) re-derives
 the full Trace semantics independently, consuming the SAME Purpose-stream

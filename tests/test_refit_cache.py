@@ -15,7 +15,7 @@ from physically_based_ray_tracer_tpu.bvh.cache import (FORMAT_VERSION,
 from physically_based_ray_tracer_tpu.bvh.dense import build_dense
 from physically_based_ray_tracer_tpu.bvh.refit import refit_bvh, refit_dense
 from physically_based_ray_tracer_tpu.ops.intersect import brute_force_intersect
-from physically_based_ray_tracer_tpu.ops.pallas_trace import \
+from physically_based_ray_tracer_tpu.ops.traverse_dense import \
     intersect_closest_dense
 from physically_based_ray_tracer_tpu.ops.traverse import intersect_closest
 from physically_based_ray_tracer_tpu.scene.procedural import make_sphere
@@ -64,7 +64,7 @@ def test_refit_dense_matches_brute_force_on_deformed():
     tri2 = _deform(tri, amp=0.5, seed=3)
     re = refit_dense(dbvh, tri2)
     o, d = _rays(1024, seed=7)
-    hit = intersect_closest_dense(re, o, d, interpret=True)
+    hit = intersect_closest_dense(re, o, d)
     ref = _oracle(tri2, o, d)
     np.testing.assert_array_equal(np.asarray(hit.prim), np.asarray(ref.prim))
     m = np.asarray(hit.prim) >= 0

@@ -113,8 +113,7 @@ def test_resharded_frame_matches_unresharded():
     """The REAL bounce loop under shard_map with per-bounce ring donation
     (sharded_frame(..., reshard_block=N)) must produce the same image as
     the plain sharded frame — per-lane results are pure functions of
-    (ray, pixel_id), so rebalancing cannot change them (VERDICT r2 #4:
-    resharding integrated into the integrator, not just the stub)."""
+    (ray, pixel_id), so rebalancing cannot change them."""
     import jax
 
     from physically_based_ray_tracer_tpu.parallel.shard import sharded_frame

@@ -4,7 +4,7 @@ The native SBVH core (bvh/csrc/sbvh_builder.cpp) may reference one triangle
 from several leaves; traversal must stay exact vs the brute-force oracle
 (the leaf holding the fragment that contains the closest hit is always
 visited, and the full triangle is intersected at every reference).
-Quality bar per VERDICT.md #5: SAH cost at or below the binned-SAH builder.
+Quality bar: SAH cost at or below the binned-SAH builder.
 """
 
 import jax
@@ -21,7 +21,7 @@ from physically_based_ray_tracer_tpu.bvh.dense import (LEAF_W, _build_core,
                                                        build_dense)
 from physically_based_ray_tracer_tpu.bvh.types import sah_cost
 from physically_based_ray_tracer_tpu.ops.intersect import brute_force_intersect
-from physically_based_ray_tracer_tpu.ops.pallas_trace import \
+from physically_based_ray_tracer_tpu.ops.traverse_dense import \
     intersect_closest_dense
 from physically_based_ray_tracer_tpu.ops.traverse import (intersect_any,
                                                           intersect_closest)
@@ -123,7 +123,7 @@ def test_dense_hq_closest_vs_brute_force():
     dbvh, depth = build_dense(tri, leaf_target=32, hq=True)
     o, d = _rays(1024, seed=11)
     ref = _oracle(tri, o, d)
-    hit = intersect_closest_dense(dbvh, o, d, interpret=True)
+    hit = intersect_closest_dense(dbvh, o, d)
     np.testing.assert_array_equal(np.asarray(hit.prim), np.asarray(ref.prim))
     m = np.asarray(hit.prim) >= 0
     np.testing.assert_allclose(np.asarray(hit.t)[m], np.asarray(ref.t)[m],

@@ -11,7 +11,7 @@ import numpy as np
 from physically_based_ray_tracer_tpu.bvh.dense import (build_dense_tlas,
                                                        refresh_tlas)
 from physically_based_ray_tracer_tpu.ops.intersect import brute_force_intersect
-from physically_based_ray_tracer_tpu.ops.pallas_trace import (
+from physically_based_ray_tracer_tpu.ops.traverse_dense import (
     intersect_any_dense, intersect_closest_dense)
 from physically_based_ray_tracer_tpu.scene.procedural import (make_quad,
                                                               make_sphere)
@@ -69,7 +69,7 @@ def test_tlas_closest_vs_brute_force():
     ref = brute_force_intersect(o, d, jnp.asarray(world[:, 0]),
                                 jnp.asarray(world[:, 1] - world[:, 0]),
                                 jnp.asarray(world[:, 2] - world[:, 0]))
-    got = intersect_closest_dense(dbvh, o, d, interpret=True)
+    got = intersect_closest_dense(dbvh, o, d)
     np.testing.assert_array_equal(np.asarray(got.prim >= 0),
                                   np.asarray(ref.prim >= 0))
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
@@ -98,12 +98,10 @@ def test_tlas_anyhit():
     t_ref = np.asarray(ref.t)
     has = t_ref < 1e29
     tmax = np.where(has, t_ref * 1.5, 100.0).astype(np.float32)
-    occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax),
-                                         interpret=True))
+    occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax)))
     np.testing.assert_array_equal(occ, has)
     tmax = np.where(has, t_ref * 0.5, 0.0).astype(np.float32)
-    occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax),
-                                         interpret=True))
+    occ = np.asarray(intersect_any_dense(dbvh, o, d, jnp.asarray(tmax)))
     assert not occ.any()
 
 
@@ -124,7 +122,7 @@ def test_refresh_tlas_moves_instance():
     ref = brute_force_intersect(o, d, jnp.asarray(world[:, 0]),
                                 jnp.asarray(world[:, 1] - world[:, 0]),
                                 jnp.asarray(world[:, 2] - world[:, 0]))
-    got = intersect_closest_dense(dbvh2, o, d, interpret=True)
+    got = intersect_closest_dense(dbvh2, o, d)
     np.testing.assert_array_equal(np.asarray(got.prim >= 0),
                                   np.asarray(ref.prim >= 0))
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
@@ -132,7 +130,7 @@ def test_refresh_tlas_moves_instance():
 
 
 def test_instanced_scene_renders_like_baked():
-    """Full frame through the Pallas path: instanced (TLAS) scene ==
+    """Full frame through the dense engine: instanced (TLAS) scene ==
     world-baked scene, and rebuild_scene tracks a moved instance."""
     import jax
     from physically_based_ray_tracer_tpu.config import RenderConfig
@@ -156,7 +154,7 @@ def test_instanced_scene_renders_like_baked():
              Instance(1)]
     cam = Camera.make(pos=(0, 1.5, 5), target=(0, 0, 0))
     cfg = RenderConfig(width=24, height=24, bounces=2, antialias=False,
-                       skybox=False, accumulate=False, traversal="pallas",
+                       skybox=False, accumulate=False, traversal="dense",
                        max_stack_depth=24)
     key = jax.random.key(0)
     ids = jnp.arange(24 * 24, dtype=jnp.int32)
